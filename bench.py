@@ -1,4 +1,4 @@
-"""Throughput benchmark: end-to-end read mapping on one TPU chip.
+"""Throughput benchmark: end-to-end read mapping on one NVIDIA GPU.
 
 Prints ONE JSON line on stdout:
   {"metric": ..., "value": N, "unit": "reads/s", "vs_baseline": N}
@@ -20,14 +20,15 @@ Error rates are dwgsim-like. Env-tunable:
   repeat-free genome, for comparison)
 The workload (index + reads + ground truth) is cached on disk so repeated
 runs measure mapping only, like the reference's map stage.
+
+Needs a GPU: without one it exits non-zero before any work. The device
+kind and count and the card's name and power limit go to stderr.
 """
 
 import json
 import os
 import sys
 import time
-
-import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -37,7 +38,7 @@ NUM_READS = int(os.environ.get("BMTPU_BENCH_READS",
                                "100000" if LONG else "1000000"))
 ALIGN = os.environ.get("BMTPU_BENCH_ALIGN", "0") == "1"
 # align mode holds the DP direction tensors alongside the map step's
-# transients — 16384-row batches OOM one v5e with the resident index
+# transients, so its map batch is half the align-free one
 BATCH = int(os.environ.get("BMTPU_BENCH_BATCH",
                            "8192" if ALIGN else "16384"))
 UNIFORM = os.environ.get("BMTPU_BENCH_UNIFORM", "0") == "1"
@@ -45,9 +46,9 @@ UNIFORM = os.environ.get("BMTPU_BENCH_UNIFORM", "0") == "1"
 # reference ships a GRCh38 f=0.25 variant (log/bucketmap_fracMinHash_map.log)
 # — the 3.1 Gbp single-chip config uses it.
 FRAC = float(os.environ.get("BMTPU_BENCH_FRAC", "1.0"))
-# host-built fine index (round-2 flow: 6.8 GB artifact uploaded through
-# the link). Default 0: the fine index is built ON DEVICE from the
-# packed genome at pipeline init (index/device_build.py).
+# host-built fine index (a 6.8 GB artifact uploaded at init). Default 0:
+# the fine index is built ON DEVICE from the packed genome at pipeline
+# init (index/device_build.py).
 HOST_FINE = os.environ.get("BMTPU_BENCH_HOST_FINE", "0") == "1"
 CACHE = os.environ.get("BMTPU_BENCH_CACHE", os.path.join(
     os.path.dirname(os.path.abspath(__file__)), ".bench_cache"))
@@ -70,46 +71,16 @@ def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
-def score_sam(sam_path, gt_path, index, tol=10):
-    """Vectorized %mapped / %correct-position: one pass over the SAM's
-    first five columns into numpy arrays, then a groupby-free boolean
-    reduction per read id (bench/sam_analyzer.py carries the full
-    reference metric set; this is the bench-speed subset)."""
-    gt_rid, gt_pos, gt_rc = [], [], []
-    with open(gt_path) as f:
-        for line in f:
-            a, b, c, _ = line.split(maxsplit=3)
-            gt_rid.append(int(a)); gt_pos.append(int(b)); gt_rc.append(int(c))
-    gt_rid = np.asarray(gt_rid, np.int32)
-    gt_pos = np.asarray(gt_pos, np.int64)
-    gt_rc = np.asarray(gt_rc, bool)
-    n_gt = len(gt_rid)
-
-    ref_short = {n.split(" ")[0]: i for i, n in enumerate(index.ref_names)}
-    qname, flag, rname, pos = [], [], [], []
-    with open(sam_path) as f:
-        for line in f:
-            if line[0] == "@":
-                continue
-            c = line.split("\t", 4)
-            qname.append(c[0]); flag.append(c[1]); rname.append(c[2])
-            pos.append(c[3])
-    qname = np.asarray(qname, np.int64)
-    flag = np.asarray(flag, np.int32)
-    rid = np.asarray([ref_short.get(r, -1) for r in rname], np.int32)
-    pos = np.asarray(pos, np.int64)
-
-    mapped = np.zeros(n_gt, bool)
-    mapped[qname] = True
-    ok = ((rid == gt_rid[qname])
-          & (((flag & 16) == 16) == gt_rc[qname])
-          & (np.abs(pos - gt_pos[qname]) <= tol))  # both 1-based
-    correct = np.zeros(n_gt, bool)
-    correct[qname[ok]] = True
-    return mapped.mean() * 100.0, correct.mean() * 100.0
-
-
 def main():
+    from bucketmap_tpu.utils.device import (gpu_name_power_limit,
+                                            require_gpu, setup_compile_cache)
+
+    devs = require_gpu("bench.py")
+    log(f"[bench] device: {devs[0].device_kind} x{len(devs)} "
+        f"({devs[0].platform}); nvidia-smi: {gpu_name_power_limit()}")
+    log(f"[bench] compile cache: {setup_compile_cache()}")
+
+    from bucketmap_tpu.bench.sam_analyzer import score_sam
     from bucketmap_tpu.config import MapperConfig
     from bucketmap_tpu.index import builder
     from bucketmap_tpu.mapper.pipeline import BucketMapPipeline
@@ -186,13 +157,6 @@ def main():
             sim.read(genome)
             sim.generate(CACHE, f"reads_{tag}", NUM_READS)
 
-    import jax
-    # persistent XLA compilation cache: the fused map step takes minutes
-    # to compile for the remote backend; cache it across runs
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(CACHE, "xla_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 10)
-    log(f"[bench] devices: {jax.devices()}")
     from bucketmap_tpu.io import native
     io_native = native.available()  # (re)builds csrc from source on demand
     log(f"[bench] native host-IO: {'ENGAGED' if io_native else 'python fallback'}")
@@ -210,27 +174,16 @@ def main():
     # when the fine index exceeds the device budget the pipeline falls to
     # the table-free packed-scan vote path, which materializes
     # (vote_chunk, bucket_len) intermediates — cap the pair chunk there
-    fine_gb = 4 * index.n_buckets * index.buckets_packed.shape[1] * 16 / (1 << 30)
-    # align mode: DP sub-batches of 16384 pairs halve the dispatch count
-    # vs the 8192 map batch (measured 37.4k vs 35.2k reads/s, HBM peak
-    # 8.7 GB — fits); the vote chunk is capped separately (pipeline.py)
+    from bucketmap_tpu.mapper.device_pipeline import fine_index_fits
+    fine_fits = fine_index_fits(index, devs[0])
+    # align mode: DP sub-batches of 16384 pairs (half the dispatches of
+    # 8192); the vote chunk is capped separately (pipeline.py)
     pair_batch = int(os.environ.get(
         "BMTPU_BENCH_PAIR_BATCH",
-        str((16384 if ALIGN else BATCH) if fine_gb <= 8 else 1024)))
-    # the remote TPU frees a just-exited process's HBM asynchronously; a
-    # bench started seconds after another TPU job can transiently OOM at
-    # init (observed once) — one retry after a grace period covers it
-    for attempt in (1, 2):
-        try:
-            pipe = BucketMapPipeline(
-                index, batch_size=BATCH, pair_batch=pair_batch, align=ALIGN,
-                fetch_group=int(os.environ.get("BMTPU_FETCH_GROUP", "1")))
-            break
-        except Exception as e:
-            if attempt == 2 or "RESOURCE_EXHAUSTED" not in str(e):
-                raise
-            log(f"[bench] init OOM (transient?), retrying in 30s: {e}")
-            time.sleep(30)
+        str((16384 if ALIGN else BATCH) if fine_fits else 1024)))
+    pipe = BucketMapPipeline(
+        index, batch_size=BATCH, pair_batch=pair_batch, align=ALIGN,
+        fetch_group=int(os.environ.get("BMTPU_FETCH_GROUP", "1")))
     # warmup: compile all jit programs on a small prefix. With a hot
     # persistent cache this is seconds; a cold cache pays full XLA
     # compile once and the next run hits.
@@ -295,10 +248,9 @@ def main():
                      else BASELINE_READS_PER_SEC_NOALIGN)
     hbm_peak = rsrc["device_hbm_peak_bytes"]
     log(f"[bench] peak host RSS {rsrc['peak_host_rss_kb']/1048576:.2f} GB, "
-        f"device HBM peak "
-        f"{'unavailable' if hbm_peak is None else f'{hbm_peak/2**30:.2f} GB'}")
+        f"device memory peak {hbm_peak/2**30:.2f} GB")
     print(json.dumps({
-        "metric": f"reads_per_sec_per_chip ({desc})",
+        "metric": f"reads_per_sec_per_gpu ({desc})",
         "value": round(rps, 1),
         "unit": "reads/s",
         "vs_baseline": round(vsb, 3),
@@ -309,7 +261,8 @@ def main():
         "warmup_seconds": round(warmup_s, 1),
         "peak_host_rss_kb": rsrc["peak_host_rss_kb"],
         "device_hbm_peak_bytes": hbm_peak,
-        "device_hbm_peak_source": rsrc["device_hbm_peak_source"],
+        "device": {"platform": devs[0].platform, "kind": devs[0].device_kind,
+                   "count": len(devs)},
         "io_native": io_native,
         **extra,
     }))

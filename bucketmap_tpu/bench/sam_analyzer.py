@@ -18,6 +18,8 @@ import dataclasses
 import os
 import re
 
+import numpy as np
+
 from bucketmap_tpu.io.sam import read_sam
 
 
@@ -218,3 +220,42 @@ class SamAnalyzer:
             if name.endswith(".sam"):
                 out[name] = self.benchmark(os.path.join(directory, name))
         return out
+
+
+def score_sam(sam_path, gt_path, index, tol=10):
+    """Vectorized %mapped / %correct-position: one pass over the SAM's
+    first five columns into numpy arrays, then a groupby-free boolean
+    reduction per read id (bench/sam_analyzer.py carries the full
+    reference metric set; this is the bench-speed subset)."""
+    gt_rid, gt_pos, gt_rc = [], [], []
+    with open(gt_path) as f:
+        for line in f:
+            a, b, c, _ = line.split(maxsplit=3)
+            gt_rid.append(int(a)); gt_pos.append(int(b)); gt_rc.append(int(c))
+    gt_rid = np.asarray(gt_rid, np.int32)
+    gt_pos = np.asarray(gt_pos, np.int64)
+    gt_rc = np.asarray(gt_rc, bool)
+    n_gt = len(gt_rid)
+
+    ref_short = {n.split(" ")[0]: i for i, n in enumerate(index.ref_names)}
+    qname, flag, rname, pos = [], [], [], []
+    with open(sam_path) as f:
+        for line in f:
+            if line[0] == "@":
+                continue
+            c = line.split("\t", 4)
+            qname.append(c[0]); flag.append(c[1]); rname.append(c[2])
+            pos.append(c[3])
+    qname = np.asarray(qname, np.int64)
+    flag = np.asarray(flag, np.int32)
+    rid = np.asarray([ref_short.get(r, -1) for r in rname], np.int32)
+    pos = np.asarray(pos, np.int64)
+
+    mapped = np.zeros(n_gt, bool)
+    mapped[qname] = True
+    ok = ((rid == gt_rid[qname])
+          & (((flag & 16) == 16) == gt_rc[qname])
+          & (np.abs(pos - gt_pos[qname]) <= tol))  # both 1-based
+    correct = np.zeros(n_gt, bool)
+    correct[qname[ok]] = True
+    return mapped.mean() * 100.0, correct.mean() * 100.0

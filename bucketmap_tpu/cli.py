@@ -54,7 +54,7 @@ def _config_from(args) -> "MapperConfig":
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="bucketmap-tpu",
-        description="TPU-native hierarchical DNA read mapper")
+        description="hierarchical DNA read mapper on JAX")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
     p_idx = sub.add_parser("index", help="build the bucket index (-x mode)")
@@ -142,7 +142,9 @@ def main(argv=None) -> int:
     if args.cmd == "map":
         from bucketmap_tpu.index import builder
         from bucketmap_tpu.mapper.pipeline import BucketMapPipeline
+        from bucketmap_tpu.utils.device import setup_compile_cache
 
+        setup_compile_cache()
         cfg = _config_from(args)
         base = os.path.join(args.index_dir, args.index_indicator)
         if os.path.exists(base + ".bmtpu.json"):
@@ -172,7 +174,7 @@ def main(argv=None) -> int:
         hbm = rsrc["device_hbm_peak_bytes"]
         print(f"[BENCHMARK]\tMaximum resident set size: "
               f"{rsrc['peak_host_rss_kb']} KB"
-              + (f"; device HBM peak: {hbm} bytes." if hbm is not None
+              + (f"; device memory peak: {hbm} bytes." if hbm is not None
                  else "."))
         return 0
 

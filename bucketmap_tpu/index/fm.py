@@ -19,13 +19,13 @@ Reference parity (SURVEY §2 rows C4/C5/C14/C15):
     is an empty stub; ours wraps FMIndexMapper into the locator
     interface so the alternative stack is end-to-end usable.
 
-TPU-native design notes
------------------------
+Device design notes
+-------------------
 Backward search is a chain of rank queries over the BWT. The batch
 formulation maps well onto XLA: for B patterns of length m, run
 ``lax.fori_loop`` over the m steps; each step is two occ-checkpoint
 gathers plus a CP-wide residual count per pattern — dense fixed-shape
-work on the VPU (``exact_search_batch``). Approximate search uses the
+work (``exact_search_batch``). Approximate search uses the
 pigeonhole principle (split into e+1 seeds, exact-search each seed,
 verify candidates with a banded edit-distance DP) — seeds across the
 batch are searched in one device call.
@@ -359,7 +359,7 @@ class BucketFMIndexer:
 
 
 # ---------------------------------------------------------------------------
-# Batched exact search on device (the TPU-native formulation)
+# Batched exact search on device (the batch formulation)
 # ---------------------------------------------------------------------------
 
 def exact_search_batch(index: FMIndex, patterns: np.ndarray,

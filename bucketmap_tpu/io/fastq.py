@@ -159,7 +159,7 @@ def iter_fastq_batches(path: str | os.PathLike,
     The full-file path materializes 4 dense (n, L) matrices plus the
     whole byte buffer — ~2 GB for 1M x 300bp — before mapping even
     starts; the reference holds ~0.87 GB TOTAL (benchmark/README.md:168).
-    Streaming parse + map + emit per chunk is the TPU build's memory
+    Streaming parse + map + emit per chunk is this build's memory
     story: peak host residency is one chunk being mapped plus one being
     written.
 

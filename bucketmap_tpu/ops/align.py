@@ -6,10 +6,10 @@ gaps on sequence1 (the reference-window text) only, edit scheme
 (match 0 / mismatch -1 / gap -1), outputs score, begin position in the
 text, and a CIGAR (M/I/D, as seqan3::cigar_from_alignment emits).
 
-TPU-native formulation: batched banded DP over pairs. Rows = query
-positions (sequential scan), band = workload-sized diagonals
-(band_geometry: 48 for 300bp at 2% indels, legacy 128 for ONT rates),
-all pairs advance together on the VPU. The intra-row dependency of the
+Formulation: batched banded DP over pairs. Rows = query positions
+(sequential scan), band = workload-sized diagonals (band_geometry: 48
+for 300bp at 2% indels, legacy 128 for ONT rates), all pairs advance
+together. The intra-row dependency of the
 left (text-gap) move is solved in closed form with a cummax transform:
 
     new[d] = max(base[d], new[d-1] - 1)
@@ -92,118 +92,72 @@ def pack_qcodes(q: np.ndarray) -> np.ndarray:
     return np.bitwise_or.reduce(qp, axis=2)
 
 
-def _dp_fwd_pallas(textp_t, qcodes_t, qlen_row, width_row,
-                   band: int = BAND, lo: int = LO,
-                   interpret: bool = False):
-    """Forward banded DP as a Pallas TPU kernel.
+def dp_forward(textp, qcodes, qlen, width, band: int, lo: int):
+    """Forward pass of the banded DP: one lax.scan step per query row.
 
-    The XLA scan formulation pays ~0.67 ms/row at (8192, 128): every
-    step round-trips the (P, BAND) wavefront carry and its temporaries
-    through HBM. Here the whole recurrence runs VMEM-resident per block
-    of PB=128 pairs, with the band on sublanes and pairs on lanes
-    (one (128, 128) i32 tile per wavefront); only the direction rows
-    stream out. Semantics identical to the scan path (same cummax
-    max-plus transform, validity masking, and dir codes).
+    textp (P, wmax + lo) int32 window text left-padded by lo (sentinel 4
+    never matches); qcodes (P, Q); qlen/width (P,) int32. Returns
+    (final_row (P, band) int32 — the DP row at i == qlen, dirs
+    (Q + 1, P, band) uint8 — direction | run length << 2 per cell,
+    row 0 all stop).
 
-    textp_t (W, P) i32 LO-left-padded window text (sentinel 4);
-    qcodes_t (Q, P) i32; qlen_row/width_row (1, P) i32.
-    Returns dirs_t (Q+1, BAND, P) uint8, final_t (BAND, P) int32.
+    The intra-row left move is solved in closed form with the cummax
+    transform (module docstring), so each step is a handful of fused
+    elementwise ops and two cummax scans over the band.
     """
-    from jax.experimental import pallas as pl
+    P, Q = qcodes.shape
+    d_idx = jnp.arange(band, dtype=jnp.int32)
+    # row 0: M[0][j] = 0 for 0 <= j <= width else NEG ; j = d - lo
+    j0 = d_idx[None, :] - lo
+    row0 = jnp.where((j0 >= 0) & (j0 <= width[:, None]), 0, NEG)
 
-    W, P = textp_t.shape
-    Q = qcodes_t.shape[0]
-    PB = 128
-    assert P % PB == 0, (P, PB)
+    def step(carry, i):
+        prev, prev_db, final_row = carry
+        qchar = qcodes[:, i - 1].astype(jnp.int32)       # (P,)
+        trow = jax.lax.dynamic_slice_in_dim(textp, i - 1, band, axis=1)
+        sub = jnp.where(trow == qchar[:, None], 0, -1)
+        diag = prev + sub
+        up = jnp.concatenate([prev[:, 1:], jnp.full((P, 1), NEG, jnp.int32)],
+                             axis=1) - 1
+        base = jnp.maximum(diag, up)
+        m = jax.lax.cummax(base + d_idx[None, :], axis=1) - d_idx[None, :]
+        # cell validity: j = i + d - lo within [0, width]
+        j = i + d_idx[None, :] - lo
+        valid = (j >= 0) & (j <= width[:, None])
+        m = jnp.where(valid, m, NEG)
+        dirs = jnp.where(m == diag, 1, jnp.where(m == up, 2, 3))
+        dirs = jnp.where(valid & (m > NEG // 2), dirs, 0)
+        # run lengths (capped 63) so the traceback can JUMP whole
+        # same-op chains: byte = dir | run << 2 (tb_mode="runs").
+        # diag chain predecessor = (i-1, d); up (I) = (i-1, d+1);
+        # left (D) = (i, d-1) — the D chain is intra-row, solved as
+        # distance-to-last-non-D via a cummax
+        pd = prev_db & 3
+        pr = prev_db >> 2
+        run1 = jnp.minimum(jnp.where(pd == 1, pr, 0) + 1, 63)
+        pd_up = jnp.concatenate([pd[:, 1:], jnp.zeros((P, 1), jnp.int32)],
+                                axis=1)
+        pr_up = jnp.concatenate([pr[:, 1:], jnp.zeros((P, 1), jnp.int32)],
+                                axis=1)
+        run2 = jnp.minimum(jnp.where(pd_up == 2, pr_up, 0) + 1, 63)
+        last = jax.lax.cummax(
+            jnp.where(dirs != 3, d_idx[None, :], -1), axis=1)
+        run3 = jnp.minimum(d_idx[None, :] - last, 63)
+        run = jnp.where(dirs == 1, run1,
+                        jnp.where(dirs == 2, run2,
+                                  jnp.where(dirs == 3, run3, 0)))
+        db = jnp.where(dirs > 0, dirs | (run << 2), 0)
+        final_row = jnp.where((i == qlen)[:, None], m, final_row)
+        return (m, db, final_row), db.astype(jnp.uint8)
 
-    shifts = []
-    k = 1
-    while k < band:                                       # cummax ladder
-        shifts.append(k)
-        k *= 2
-
-    def kernel(textp_ref, qcodes_ref, qlen_ref, width_ref,
-               dirs_ref, final_ref):
-        width = width_ref[0][None, :]                     # (1, PB)
-        qlen = qlen_ref[0][None, :]
-        d_col = jax.lax.broadcasted_iota(jnp.int32, (band, PB), 0)
-        j0 = d_col - lo
-        row0 = jnp.where((j0 >= 0) & (j0 <= width), 0, NEG)
-        dirs_ref[0] = jnp.zeros((band, PB), jnp.uint8)    # row 0 all stop
-        negrow = jnp.full((1, PB), NEG, jnp.int32)
-        zrow = jnp.zeros((1, PB), jnp.int32)
-        init_final = jnp.where(qlen == 0, row0,
-                               jnp.full((band, PB), NEG, jnp.int32))
-
-        def step(i, carry):
-            prev, prev_db, final = carry
-            qchar = qcodes_ref[pl.ds(i - 1, 1), :]        # (1, PB)
-            trow = textp_ref[pl.ds(i - 1, band), :]       # (band, PB)
-            sub = jnp.where(trow == qchar, 0, -1)
-            diag = prev + sub
-            up = jnp.concatenate([prev[1:], negrow], axis=0) - 1
-            base = jnp.maximum(diag, up)
-            m = base + d_col
-            for k in shifts:                              # cummax over d
-                m = jnp.maximum(m, jnp.concatenate(
-                    [jnp.full((k, PB), NEG, jnp.int32), m[:band - k]],
-                    axis=0))
-            m = m - d_col
-            j = i + d_col - lo
-            valid = (j >= 0) & (j <= width)
-            m = jnp.where(valid, m, NEG)
-            dirs = jnp.where(m == diag, 1, jnp.where(m == up, 2, 3))
-            dirs = jnp.where(valid & (m > NEG // 2), dirs, 0)
-            # run lengths (capped 63) so the traceback can JUMP whole
-            # same-op chains: byte = dir | run << 2 (see _align_core
-            # tb_mode="runs"). diag chain predecessor = (i-1, d); up
-            # (I) = (i-1, d+1); left (D) = (i, d-1) — the D chain is
-            # intra-row, solved as distance-to-last-non-D via the same
-            # shift-max ladder as the cummax transform.
-            pd = prev_db & 3
-            pr = prev_db >> 2
-            run1 = jnp.minimum(jnp.where(pd == 1, pr, 0) + 1, 63)
-            pd_up = jnp.concatenate([pd[1:], zrow], axis=0)
-            pr_up = jnp.concatenate([pr[1:], zrow], axis=0)
-            run2 = jnp.minimum(jnp.where(pd_up == 2, pr_up, 0) + 1, 63)
-            last = jnp.where(dirs != 3, d_col, -1)
-            for k in shifts:
-                last = jnp.maximum(last, jnp.concatenate(
-                    [jnp.full((k, PB), -1, jnp.int32), last[:band - k]],
-                    axis=0))
-            run3 = jnp.minimum(d_col - last, 63)
-            run = jnp.where(dirs == 1, run1,
-                            jnp.where(dirs == 2, run2,
-                                      jnp.where(dirs == 3, run3, 0)))
-            db = jnp.where(dirs > 0, dirs | (run << 2), 0)
-            dirs_ref[pl.ds(i, 1)] = db.astype(jnp.uint8)[None]
-            final = jnp.where(i == qlen, m, final)
-            return (m, db, final)
-
-        _, _, final = jax.lax.fori_loop(
-            1, Q + 1, step, (row0, jnp.zeros((band, PB), jnp.int32),
-                             init_final))
-        final_ref[:] = final
-
-    return pl.pallas_call(
-        kernel,
-        grid=(P // PB,),
-        in_specs=[
-            pl.BlockSpec((W, PB), lambda b: (0, b)),
-            pl.BlockSpec((Q, PB), lambda b: (0, b)),
-            pl.BlockSpec((1, PB), lambda b: (0, b)),
-            pl.BlockSpec((1, PB), lambda b: (0, b)),
-        ],
-        out_specs=[
-            pl.BlockSpec((Q + 1, band, PB), lambda b: (0, 0, b)),
-            pl.BlockSpec((band, PB), lambda b: (0, b)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((Q + 1, band, P), jnp.uint8),
-            jax.ShapeDtypeStruct((band, P), jnp.int32),
-        ],
-        interpret=interpret,
-    )(textp_t, qcodes_t, qlen_row, width_row)
+    init_final = jnp.where((qlen == 0)[:, None], row0,
+                           jnp.full((P, band), NEG))
+    (_, _, final_row), dirs = jax.lax.scan(
+        step, (row0, jnp.zeros((P, band), jnp.int32), init_final),
+        jnp.arange(1, Q + 1))
+    dirs = jnp.concatenate(
+        [jnp.zeros((1, P, band), jnp.uint8), dirs])  # row 0 all stop
+    return final_row, dirs
 
 
 class BandedAligner:
@@ -217,18 +171,6 @@ class BandedAligner:
         self._bp_host = index.buckets_packed
         self._bp_dev = None
         self.bucket_lengths = jnp.asarray(index.bucket_lengths)
-        # forward-DP backend: the VMEM-resident Pallas kernel on TPU,
-        # the lax.scan twin elsewhere (tests/dryruns run on CPU).
-        # BMTPU_ALIGN_DP=pallas|scan overrides; BMTPU_PALLAS_INTERPRET=1
-        # interprets the kernel.
-        env = os.environ.get("BMTPU_ALIGN_DP", "auto")
-        self._dp_interpret = \
-            os.environ.get("BMTPU_PALLAS_INTERPRET", "0") == "1"
-        if env in ("pallas", "scan"):
-            self._dp_mode = env
-        else:
-            self._dp_mode = ("scan" if jax.default_backend() == "cpu"
-                             else "pallas")
         self._align = jax.jit(self._align_impl)
         self._align_runs = jax.jit(self._align_runs_impl,
                                    static_argnames=("run_cap", "wrap_star"))
@@ -349,9 +291,8 @@ class BandedAligner:
         # text_rc[j] = 3 - text[width-1-j] = (3 - flip(text))[j + wmax -
         # width], i.e. a static flip (cheap reverse op) plus a per-row
         # LEFT shift by delta = wmax - width, done as log2(wmax) masked
-        # static shifts. The previous take_along_axis lowered to a
-        # general gather — measured 24 ms per 8192 pairs on v5e, ~50x
-        # this formulation.
+        # static shifts instead of a take_along_axis, which lowers to a
+        # general gather.
         text_rc = 3 - text[:, ::-1]
         delta = (wmax - width).astype(jnp.int32)             # in [0, wmax]
         k = 1
@@ -366,71 +307,11 @@ class BandedAligner:
         # left-pad by lo so row i reads text[(i-1) + d - lo] as a slice at i-1
         textp = jnp.pad(text, ((0, 0), (lo, 0)), constant_values=4)
 
-        d_idx = jnp.arange(band, dtype=jnp.int32)
-        # row 0: M[0][j] = 0 for 0 <= j <= width else NEG ; j = d - lo
-        j0 = d_idx[None, :] - lo
-        row0 = jnp.where((j0 >= 0) & (j0 <= width[:, None]), 0, NEG)
+        final_row, dirs = dp_forward(textp, qcodes, qlen, width, band, lo)
 
-        def step(carry, i):
-            prev, prev_db, final_row = carry
-            qchar = qcodes[:, i - 1].astype(jnp.int32)       # (P,)
-            trow = jax.lax.dynamic_slice_in_dim(textp, i - 1, band, axis=1)
-            sub = jnp.where(trow == qchar[:, None], 0, -1)
-            diag = prev + sub
-            up = jnp.concatenate([prev[:, 1:], jnp.full((P, 1), NEG, jnp.int32)],
-                                 axis=1) - 1
-            base = jnp.maximum(diag, up)
-            m = jax.lax.cummax(base + d_idx[None, :], axis=1) - d_idx[None, :]
-            # cell validity: j = i + d - lo within [0, width]
-            j = i + d_idx[None, :] - lo
-            valid = (j >= 0) & (j <= width[:, None])
-            m = jnp.where(valid, m, NEG)
-            dirs = jnp.where(m == diag, 1, jnp.where(m == up, 2, 3))
-            dirs = jnp.where(valid & (m > NEG // 2), dirs, 0)
-            # byte = dir | run << 2 (same semantics as the Pallas
-            # kernel; see there for the chain definitions)
-            pd = prev_db & 3
-            pr = prev_db >> 2
-            run1 = jnp.minimum(jnp.where(pd == 1, pr, 0) + 1, 63)
-            pd_up = jnp.concatenate([pd[:, 1:], jnp.zeros((P, 1), jnp.int32)],
-                                    axis=1)
-            pr_up = jnp.concatenate([pr[:, 1:], jnp.zeros((P, 1), jnp.int32)],
-                                    axis=1)
-            run2 = jnp.minimum(jnp.where(pd_up == 2, pr_up, 0) + 1, 63)
-            last = jax.lax.cummax(
-                jnp.where(dirs != 3, d_idx[None, :], -1), axis=1)
-            run3 = jnp.minimum(d_idx[None, :] - last, 63)
-            run = jnp.where(dirs == 1, run1,
-                            jnp.where(dirs == 2, run2,
-                                      jnp.where(dirs == 3, run3, 0)))
-            db = jnp.where(dirs > 0, dirs | (run << 2), 0)
-            final_row = jnp.where((i == qlen)[:, None], m, final_row)
-            return (m, db, final_row), db.astype(jnp.uint8)
-
-        if self._dp_mode == "pallas":
-            Pp = -(-P // 128) * 128                          # pad to block
-            pad = ((0, 0), (0, Pp - P))
-            dirs_t, final_t = _dp_fwd_pallas(
-                jnp.pad(textp.T, ((0, 0), (0, Pp - P)), constant_values=4),
-                jnp.pad(qcodes.astype(jnp.int32).T, pad),
-                jnp.pad(qlen[None, :], pad, constant_values=1),
-                jnp.pad(width[None, :], pad, constant_values=1),
-                band=band, lo=lo, interpret=self._dp_interpret)
-            final_row = final_t[:, :P].T                     # (P, band)
-            def get_byte(i, d):
-                return dirs_t[i, jnp.clip(d, 0, band - 1),
-                              jnp.arange(P)].astype(jnp.int32)
-        else:
-            init_final = jnp.where((qlen == 0)[:, None], row0,
-                                   jnp.full((P, band), NEG))
-            (_, _, final_row), dirs = jax.lax.scan(
-                step, (row0, jnp.zeros((P, band), jnp.int32), init_final),
-                jnp.arange(1, Q + 1))
-            dirs = jnp.concatenate(
-                [jnp.zeros((1, P, band), jnp.uint8), dirs])  # row 0 all stop
-            def get_byte(i, d):
-                return dirs[i, jnp.arange(P),
-                            jnp.clip(d, 0, band - 1)].astype(jnp.int32)
+        def get_byte(i, d):
+            return dirs[i, jnp.arange(P),
+                        jnp.clip(d, 0, band - 1)].astype(jnp.int32)
 
         score = final_row.max(axis=1)
         # smallest j among co-optimal ends
@@ -493,7 +374,7 @@ class BandedAligner:
         score, begin, ops = self._align_core(
             buckets_packed, qcodes, qlen, bucket_ids, offsets, is_rc, width)
         # op codes are 2 bits; pack 16/word so the download is 1/4 the
-        # bytes (the host link runs at ~14 MB/s)
+        # bytes
         ow = -(-max_ops // 16)
         opsp = jnp.pad(ops, ((0, 0), (0, ow * 16 - max_ops)))
         opsp = opsp.reshape(P, ow, 16).astype(jnp.uint32)
@@ -512,9 +393,8 @@ class BandedAligner:
                          wrap_star: bool = True):
         """Device-RLE output format: ONE int32 vector per sub-batch.
 
-        The packed-ops download was the align cycle's biggest line item
-        (754 KB/8192 pairs at the link's ~11 MB/s = ~70 ms); a CIGAR is
-        typically 1-3 runs, so the traceback is run-length-encoded ON
+        The packed-ops result is 92 B/pair; a CIGAR is typically 1-3
+        runs, so the traceback is run-length-encoded ON
         DEVICE and only the runs ship. qpacked (P, W) uint32 carries the
         query codes 2-bit packed (4x smaller upload than the u8 matrix).
         Layout of the result vector:

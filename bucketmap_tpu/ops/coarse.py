@@ -1,6 +1,6 @@
 """Coarse stage: score every bucket against every read's sampled k-mers.
 
-TPU-native reformulation of the reference's fault_tolerate_filter cascade
+A counting reformulation of the reference's fault_tolerate_filter cascade
 (q_gram_mapper.h:27-136). The cascade
     filters[i] &= filters[i+1] | input ;  filters[last] &= input
 followed by best_results() (highest non-empty level) is equivalent to:
@@ -11,7 +11,7 @@ followed by best_results() (highest non-empty level) is equivalent to:
 
 so instead of maintaining `fault` cascaded bitsets per read we compute the
 per-bucket hit *count* with dense word-parallel AND + bit-unpack + add —
-the TPU scale-up of std::bitset word-parallelism. Everything is
+the data-parallel scale-up of std::bitset word-parallelism. Everything is
 fixed-shape: candidate lists are padded to max_candidate_buckets with -1.
 
 Per-read flow (query_sequence, q_gram_mapper.h:414-480):
@@ -47,37 +47,28 @@ def min_good_kmers(cfg: MapperConfig) -> int:
     return math.ceil(0.2 * cfg.mapper_samples)
 
 
-def _popcount32(x, xp=jnp):
-    """SWAR popcount of a uint32 array (Mosaic has no population_count)."""
-    x = x - ((x >> xp.uint32(1)) & xp.uint32(0x55555555))
-    x = (x & xp.uint32(0x33333333)) + ((x >> xp.uint32(2)) & xp.uint32(0x33333333))
-    x = (x + (x >> xp.uint32(4))) & xp.uint32(0x0F0F0F0F)
-    return ((x * xp.uint32(0x01010101)) >> xp.uint32(24)).astype(xp.int32)
-
-
-def _word_max_cnt(planes, vmask, xp=jnp):
+def _word_max_cnt(planes, vmask):
     """Per-word max + at-max count of 32 bit-plane-packed counters.
 
     planes[j] bit b = bit j of bucket b's hit count; vmask = valid-bucket
     bits. Bitwise max: scan planes high->low keeping the candidate set —
     cand starts as vmask; at each plane, if any candidate has the bit
     set, the max has it and candidates narrow to those. O(n_planes) word
-    ops instead of expanding 32 per-bucket counts (the VPU-bound 32x
-    inner loop this replaces). Fully-masked words read max -1, count 32
-    (the tile-padding convention downstream relies on).
+    ops instead of expanding 32 per-bucket counts. Fully-masked words
+    read max -1, count 32 (they never equal a live read's max).
 
     Returns (cm int32, cc int32) with planes' shape."""
     cand = vmask
-    m = jnp.zeros(vmask.shape, jnp.int32) if xp is jnp else \
-        np.zeros(vmask.shape, np.int32)
+    m = jnp.zeros(vmask.shape, jnp.int32)
     for j in range(len(planes) - 1, -1, -1):
         t = cand & planes[j]
-        nz = t != xp.uint32(0)
-        cand = xp.where(nz, t, cand)
-        m = m * 2 + nz.astype(xp.int32)
-    empty = vmask == xp.uint32(0)
-    cm = xp.where(empty, -1, m)
-    cc = xp.where(empty, 32, _popcount32(cand, xp=xp))
+        nz = t != jnp.uint32(0)
+        cand = jnp.where(nz, t, cand)
+        m = m * 2 + nz.astype(jnp.int32)
+    empty = vmask == jnp.uint32(0)
+    cm = jnp.where(empty, -1, m)
+    cc = jnp.where(empty, 32,
+                   jax.lax.population_count(cand).astype(jnp.int32))
     return cm, cc
 
 
@@ -91,307 +82,21 @@ def _valid_word_mask(colbase, bound, xp=jnp):
                     xp.where(rem <= 0, xp.uint32(0), part))
 
 
-def _chunk_scan_pallas(presence, bound, block_rows: int = 256,
-                       interpret: bool = False):
-    """Fused bit-sliced counting + per-word-chunk reduction as one Pallas
-    kernel.
-
-    presence: (B, 2, s, w) uint32 — per-sample bucket-presence words (the
-    AND of each sample's q-gram occupancy rows). bound: int32 scalar, the
-    first out-of-range bucket column (masked out — required because the
-    all-ones sentinel row sets phantom bits beyond the last real bucket).
-
-    Per (row-block, word-tile) program: run the s-step carry chain into
-    bit-plane registers, then reduce each word's 32 packed counters to
-    chunk max + at-max count with the bitwise plane scan (_word_max_cnt)
-    — all in VMEM, no per-bucket expansion. The (B, 2, n) per-bucket hit
-    tensor (425 MB/batch at production scale, the round-1 design) never
-    exists in HBM: traffic is one presence read + two (B, 2, w) writes.
-
-    Returns (chunk_max (B, 2, w_pad) i32, chunk_cnt (B, 2, w_pad) i32,
-    planes (B, 2, n_planes, w_pad) uint32 packed per-bucket counters)
-    where w_pad rounds w up to the tile width (padded chunks read as
-    fully masked: max -1, count 32).
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    B, two, s, w = presence.shape
-    B2 = B * two
-    n_planes = s.bit_length()
-    pres = presence.reshape(B2, s, w)
-    Tw = 128 if w >= 128 else -(-w // 8) * 8
-    wp = -(-w // Tw) * Tw
-    if wp != w:
-        pres = jnp.pad(pres, ((0, 0), (0, 0), (0, wp - w)))
-    BR = min(block_rows, B2)
-    assert B2 % BR == 0, (B2, BR)
-    nt = wp // Tw
-
-    def kernel(bound_ref, p_ref, cm_ref, cc_ref, pl_ref):
-        t = pl.program_id(1)
-        bnd = bound_ref[0]
-        planes = [jnp.zeros((BR, Tw), jnp.uint32) for _ in range(n_planes)]
-        for i in range(s):
-            carry = p_ref[:, i, :]
-            for j in range(n_planes):
-                tmp = planes[j] & carry
-                planes[j] = planes[j] ^ carry
-                carry = tmp
-        wit = jax.lax.broadcasted_iota(jnp.int32, (BR, Tw), 1)
-        colbase = (t * Tw + wit) * 32
-        cm, cc = _word_max_cnt(planes, _valid_word_mask(colbase, bnd))
-        cm_ref[:] = cm
-        cc_ref[:] = cc
-        for j in range(n_planes):
-            pl_ref[:, j] = planes[j]
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(B2 // BR, nt),
-        in_specs=[
-            pl.BlockSpec((BR, s, Tw), lambda i, t, _b: (i, 0, t),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((BR, Tw), lambda i, t, _b: (i, t),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((BR, Tw), lambda i, t, _b: (i, t),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((BR, n_planes, Tw), lambda i, t, _b: (i, 0, t),
-                         memory_space=pltpu.VMEM),
-        ],
-    )
-    cm, cc, planes = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((B2, wp), jnp.int32),
-            jax.ShapeDtypeStruct((B2, wp), jnp.int32),
-            jax.ShapeDtypeStruct((B2, n_planes, wp), jnp.uint32),
-        ],
-        interpret=interpret,
-    )(jnp.asarray(bound, jnp.int32).reshape(1), pres)
-    return (cm.reshape(B, two, wp), cc.reshape(B, two, wp),
-            planes.reshape(B, two, n_planes, wp))
-
-
-def _presence_gather_pallas(qgram_words, rows, block_samples: int = 240,
-                            n_slots: int = 8, interpret: bool = False):
-    """Presence row-gather + AND as one Pallas kernel with a manual DMA
-    ring.
-
-    qgram_words: (G1, wq) uint32 occupancy table, wq % 128 == 0 (lane-
-    aligned rows), resident in HBM (pltpu.ANY). rows: (R, 4) int32 — per
-    sample row, the table rows of its 4 contained q-grams (kmer_to_row
-    applied). Returns presence (R, wq) uint32 = AND of the 4 rows.
-
-    XLA lowers the equivalent take() to a scattered row gather measured
-    at ~51 GB/s (8% of HBM); here each grid program owns `block_samples`
-    samples and streams their 4-row sets through an n_slots-deep ring of
-    async HBM->VMEM copies (4 DMAs in flight per slot), so row fetch
-    latency overlaps the AND of earlier slots.
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    R, nq = rows.shape
-    G1, S8, L = qgram_words.shape             # row = (S8, 128) sub-tiles
-    assert L == 128 and S8 % 8 == 0, (S8, L)  # HBM slices must tile-align
-    T = min(block_samples, R)
-    while R % T:                               # largest divisor <= block
-        T -= 1
-    NS = n_slots
-
-    def kernel(rows_ref, tab_ref, out_ref):
-        def body(scratch, sems):
-            def dma(t, slot, i):
-                return pltpu.make_async_copy(
-                    tab_ref.at[rows_ref[t, i]],
-                    scratch.at[slot, i],
-                    sems.at[slot, i])
-
-            for t in range(min(NS, T)):        # warmup: fill the ring
-                for i in range(nq):
-                    dma(t, t % NS, i).start()
-
-            def step(t, _):
-                slot = jax.lax.rem(t, NS)
-                for i in range(nq):
-                    dma(t, slot, i).wait()
-                acc = scratch[slot, 0]
-                for i in range(1, nq):
-                    acc = acc & scratch[slot, i]
-                out_ref[pl.ds(t, 1)] = acc[None]
-
-                @pl.when(t + NS < T)
-                def _():
-                    for i in range(nq):
-                        dma(t + NS, slot, i).start()
-                return 0
-
-            jax.lax.fori_loop(0, T, step, 0)
-
-        pl.run_scoped(
-            body,
-            scratch=pltpu.VMEM((NS, nq, S8, L), jnp.uint32),
-            sems=pltpu.SemaphoreType.DMA((NS, nq)),
-        )
-
-    out = pl.pallas_call(
-        kernel,
-        grid=(R // T,),
-        in_specs=[
-            pl.BlockSpec((T, nq), lambda i: (i, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.ANY),
-        ],
-        out_specs=pl.BlockSpec((T, S8, L), lambda i: (i, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((R, S8, L), jnp.uint32),
-        interpret=interpret,
-    )(rows, qgram_words)
-    return out.reshape(R, S8 * L)
-
-
-def _coarse_score_pallas(qgram_words3, rows, bound, s: int,
-                         block_rows: int = 32, n_slots: int = 16,
-                         interpret: bool = False):
-    """The WHOLE coarse scoring as one Pallas kernel: row gather (manual
-    DMA ring), per-sample AND, bit-plane ripple-carry counting, and the
-    per-word max / at-max-count reduction — presence never exists in HBM.
-
-    qgram_words3: (G1, S8, 128) uint32 occupancy table (row = S8*128
-    words, S8 % 8 == 0 so a row slice covers whole (8,128) tiles).
-    rows: (B2*s, nq) int32 — table rows of each sample's nq contained
-    q-grams, s samples per read-strand, sample-minor. bound: int32 (1,)
-    — first out-of-range bucket column.
-
-    Returns (chunk_max (B2, S8*128) i32, chunk_cnt (B2, S8*128) i32,
-    planes (B2, n_planes, S8*128) uint32) — cm/cc exactly as
-    _chunk_scan_jnp(presence) would give, planes carrying the packed
-    per-bucket hit counters for downstream at-max extraction.
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    R, nq = rows.shape
-    assert R % s == 0
-    B2 = R // s
-    G1, S8, L = qgram_words3.shape
-    assert L == 128 and S8 % 8 == 0, (S8, L)
-    n_planes = s.bit_length()
-    BR = min(block_rows, B2)
-    while B2 % BR:
-        BR -= 1
-    T = BR * s
-    NS = n_slots
-
-    def kernel(bound_ref, rows_ref, tab_ref, cm_ref, cc_ref, planes_ref):
-        def body(scratch, sems):
-            def dma(t, slot, i):
-                return pltpu.make_async_copy(
-                    tab_ref.at[rows_ref[t, i]],
-                    scratch.at[slot, i],
-                    sems.at[slot, i])
-
-            planes_ref[:] = jnp.zeros((BR, n_planes, S8, L), jnp.uint32)
-
-            for t in range(min(NS, T)):        # warmup: fill the ring
-                for i in range(nq):
-                    dma(t, t % NS, i).start()
-
-            def step(t, _):
-                slot = jax.lax.rem(t, NS)
-                r = jax.lax.div(t, s)
-                for i in range(nq):
-                    dma(t, slot, i).wait()
-                carry = scratch[slot, 0]
-                for i in range(1, nq):
-                    carry = carry & scratch[slot, i]
-                # ripple the sample's presence bits into the read's
-                # packed counters (commutative, so sample order is free)
-                for j in range(n_planes):
-                    pj = planes_ref[r, j]
-                    planes_ref[r, j] = pj ^ carry
-                    carry = pj & carry
-
-                @pl.when(t + NS < T)
-                def _():
-                    for i in range(nq):
-                        dma(t + NS, slot, i).start()
-                return 0
-
-            jax.lax.fori_loop(0, T, step, 0)
-
-            sub = jax.lax.broadcasted_iota(jnp.int32, (S8, L), 0)
-            lane = jax.lax.broadcasted_iota(jnp.int32, (S8, L), 1)
-            vmask = _valid_word_mask((sub * L + lane) * 32, bound_ref[0])
-            planes = [planes_ref[:, j] for j in range(n_planes)]
-            cm, cc = _word_max_cnt(planes, vmask[None])
-            cm_ref[:] = cm
-            cc_ref[:] = cc
-
-        pl.run_scoped(
-            body,
-            scratch=pltpu.VMEM((NS, nq, S8, L), jnp.uint32),
-            sems=pltpu.SemaphoreType.DMA((NS, nq)),
-        )
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(B2 // BR,),
-        in_specs=[
-            pl.BlockSpec((T, nq), lambda i, _b: (i, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.ANY),
-        ],
-        out_specs=[
-            pl.BlockSpec((BR, S8, L), lambda i, _b: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((BR, S8, L), lambda i, _b: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((BR, n_planes, S8, L), lambda i, _b: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-    )
-    cm, cc, planes = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((B2, S8, L), jnp.int32),
-            jax.ShapeDtypeStruct((B2, S8, L), jnp.int32),
-            jax.ShapeDtypeStruct((B2, n_planes, S8, L), jnp.uint32),
-        ],
-        interpret=interpret,
-    )(jnp.asarray(bound, jnp.int32).reshape(1), rows, qgram_words3)
-    wq = S8 * L
-    return (cm.reshape(B2, wq), cc.reshape(B2, wq),
-            planes.reshape(B2, n_planes, wq))
-
-
 def _first_set_indices(mask, C: int):
     """Indices of the first C set lanes along the last axis — exact capped
     compaction via cumsum ranks + a fused rank-match reduction.
 
-    XLA's TopK lowers to a full sort-network pass on TPU: measured
-    ~35 ms per call on (8192, 2, 896) int32 keys — 2x the entire fine
-    stage. A binary search over the rank vector is better but its
-    take_along_axis probes are ~10M scalar gathers per call (~75 ms
-    measured at production shape). Gather-free instead: the j-th set
-    bit is the unique position whose masked running rank equals j+1, so
-    one broadcast compare against the C target ranks and a sum over the
-    position axis extracts all C indices in a single streaming pass
-    (XLA fuses the (..., n, C) indicator into the reduction — it never
-    exists in HBM).
+    Gather- and sort-free (TopK is a sort, and a binary search over the
+    rank vector is one scalar gather per probe): the j-th set bit is the
+    unique position whose masked running rank equals j+1, so a compare
+    against each of the C target ranks and a sum over the position axis
+    extracts all C indices in streaming passes (XLA fuses the indicator
+    into the reduction — it never exists in device memory). Looping the
+    C targets keeps n in the minor axis, so every pass is a full-width
+    fused compare+select+reduce over an int8 rank vector.
 
     mask: (..., n) bool. Returns (idx (..., C) int32 ascending, valid
-    (..., C) bool); idx is 0 where invalid.
-
-    Shape note: the single broadcast compare (..., n, C) puts C in the
-    minor axis — 30/128 lanes used, measured ~45 ms at production shape.
-    Looping the C targets instead keeps n in the (padded) lane axis, so
-    every pass is a full-lane fused compare+select+reduce over an int8
-    rank vector: measured ~6 ms for the same work."""
+    (..., C) bool); idx is 0 where invalid."""
     n = mask.shape[-1]
     rank = jnp.cumsum(mask.astype(jnp.int32), axis=-1)       # (..., n)
     total = rank[..., -1:]
@@ -407,10 +112,33 @@ def _first_set_indices(mask, C: int):
     return jnp.where(valid, idx, 0), valid
 
 
-def _chunk_scan_jnp(presence, bound):
-    """Reference implementation of _chunk_scan_pallas in plain jnp (used
-    on CPU: tests, dryruns). Identical outputs, including the w -> w_pad
-    tile padding, so the two backends are interchangeable."""
+def _presence_rows(qgram_words, rows):
+    """Bucket-presence words of each sample: the AND of its q-gram
+    occupancy rows. qgram_words (G1, w) uint32; rows (R, nq) int32 table
+    rows. Returns (R, w) uint32."""
+    pres = qgram_words[rows[:, 0]]
+    for i in range(1, rows.shape[1]):
+        pres = pres & qgram_words[rows[:, i]]
+    return pres
+
+
+def _chunk_scan(presence, bound):
+    """Fused bit-sliced counting + per-word-chunk reduction.
+
+    presence: (B, 2, s, w) uint32 — per-sample bucket-presence words (the
+    AND of each sample's q-gram occupancy rows). bound: int32 scalar, the
+    first out-of-range bucket column (masked out — required because the
+    all-ones sentinel row sets phantom bits beyond the last real bucket).
+
+    The s samples ripple-carry into n_planes = s.bit_length() bit-plane
+    words (plane j bit b = bit j of bucket b's hit count), then each
+    word's 32 packed counters reduce to chunk max + at-max count with
+    the bitwise plane scan (_word_max_cnt) — no per-bucket expansion;
+    the (B, 2, 32*w) per-bucket hit tensor never exists.
+
+    Returns (chunk_max (B, 2, w) i32, chunk_cnt (B, 2, w) i32, planes
+    (B, 2, n_planes, w) uint32 packed per-bucket counters).
+    """
     B, two, s, w = presence.shape
     n_planes = s.bit_length()
     planes = [jnp.zeros((B, two, w), jnp.uint32) for _ in range(n_planes)]
@@ -423,20 +151,13 @@ def _chunk_scan_jnp(presence, bound):
     colbase = jnp.arange(w, dtype=jnp.int32) * 32
     vmask = _valid_word_mask(colbase[None, None, :], bound)
     cm, cc = _word_max_cnt(planes, vmask)
-    planes = jnp.stack(planes, axis=2)                  # (B, 2, n_planes, w)
-    Tw = 128 if w >= 128 else -(-w // 8) * 8
-    wp = -(-w // Tw) * Tw
-    if wp != w:
-        cm = jnp.pad(cm, ((0, 0), (0, 0), (0, wp - w)), constant_values=-1)
-        cc = jnp.pad(cc, ((0, 0), (0, 0), (0, wp - w)), constant_values=32)
-        planes = jnp.pad(planes, ((0, 0), (0, 0), (0, 0), (0, wp - w)))
-    return cm, cc, planes
+    return cm, cc, jnp.stack(planes, axis=2)
 
 
 class CoarseMapper:
     """Holds the coarse index on device and a jitted batch query."""
 
-    def __init__(self, index: BucketIndex, interpret: bool = False):
+    def __init__(self, index: BucketIndex):
         cfg = index.config
         cfg.validate()
         self.cfg = cfg
@@ -451,8 +172,8 @@ class CoarseMapper:
         k2r = index.kmer_to_row.astype(np.int32)
         self.kmer_to_row = jnp.asarray(np.where(k2r < 0, g, k2r))
         # FracMinHash f=1.0 keeps every q-gram in hash order, so the
-        # row map is the identity — the (B,2,s,nq) row gather (3.9M
-        # elements/batch, ~15 ms measured) can be skipped entirely
+        # row map is the identity — the (B,2,s,nq) row gather can be
+        # skipped entirely
         self.k2r_identity = bool(
             k2r.shape[0] == g and np.array_equal(k2r, np.arange(g)))
         self.zeros = jnp.asarray(index.zeros)
@@ -476,20 +197,9 @@ class CoarseMapper:
                  ).astype(np.uint8))
         self.sample_tab = jnp.asarray(
             sample_table(cfg.mapper_samples, cfg.read_len))
-        # chunk-scan backend: the fused Pallas kernel on TPU, plain jnp
-        # elsewhere (tests/dryruns run on CPU). BMTPU_COARSE=pallas|jnp
-        # overrides; BMTPU_PALLAS_INTERPRET=1 interprets the kernel.
-        env = os.environ.get("BMTPU_COARSE", "auto")
-        self._scan_interpret = \
-            os.environ.get("BMTPU_PALLAS_INTERPRET", "0") == "1"
-        if env in ("pallas", "jnp"):
-            self._scan_mode = env
-        else:
-            self._scan_mode = ("jnp" if jax.default_backend() == "cpu"
-                               else "pallas")
         # index arrays are passed as jit ARGUMENTS (not closure captures):
         # captured arrays become HLO constants, which recompile on every
-        # index change and blow up remote-compile payloads.
+        # index change and bloat the compiled program.
         self._query = jax.jit(self._query_from_quals_impl)
 
     @property
@@ -499,23 +209,10 @@ class CoarseMapper:
 
             from bucketmap_tpu.index.builder import slab_upload
             qw = self._qgram_host
-            w = qw.shape[1]
-            if self._scan_mode == "pallas":
-                # tile-align rows for the manual-DMA presence gather (an
-                # HBM row slice must cover whole (8, 128) tiles); padded
-                # columns are past `bound` and mask to -1 downstream.
-                # Padding happens ON DEVICE (slab_upload): the old host
-                # np.pad + whole-table jnp.asarray cost ~2.1 GB of
-                # transient+retained host RSS at genome scale
-                wq = -(-w // 1024) * 1024
-            else:
-                wq = w
-            # BMTPU_DEVICE_OCC=1|auto: rebuild the occupancy table ON
-            # the chip from buckets_packed (bit-identical, verified)
-            # instead of uploading it — the remote client permanently
-            # retains every uploaded byte (~0.85 GB here), and the
-            # device build rides the genome upload the fine stage
-            # needs anyway
+            # BMTPU_DEVICE_OCC=1|auto: rebuild the occupancy table on the
+            # device from buckets_packed (bit-identical, verified) instead
+            # of uploading it; the device build rides the genome upload
+            # the fine stage needs anyway
             env = os.environ.get("BMTPU_DEVICE_OCC", "auto")
             want = env == "1" or (env == "auto"
                                   and _jax.default_backend() != "cpu")
@@ -523,10 +220,9 @@ class CoarseMapper:
                 from bucketmap_tpu.index.device_build import \
                     build_occupancy_on_device
                 self._qgram_dev = build_occupancy_on_device(
-                    self._index, width=wq,
-                    bp_dev=getattr(self, "_bp_dev", None))
+                    self._index, bp_dev=getattr(self, "_bp_dev", None))
             if self._qgram_dev is None:
-                self._qgram_dev = slab_upload(qw, width=wq)
+                self._qgram_dev = slab_upload(qw)
         return self._qgram_dev
 
     @qgram_words.setter
@@ -581,10 +277,8 @@ class CoarseMapper:
         # deterministic sampling of good positions in increasing order:
         # the sel[j]-th good position is the unique one whose masked
         # running rank equals sel[j]+1, so a compare + sum extracts each
-        # sample in one full-lane streaming pass — no argsort (XLA's
-        # sort over (B, K) keys measured ~10x this; a single broadcast
-        # compare with s in the minor axis wastes 113/128 lanes and
-        # measured ~2.5x these s passes)
+        # sample in one full-width streaming pass — no argsort over
+        # (B, K) keys, and K (not s) stays the minor axis
         ub = jnp.clip(num_good - 1, 0, sample_tab.shape[0] - 1)
         sel = sample_tab[ub]                                   # (B, s)
         rank = jnp.cumsum(good.astype(jnp.int32), axis=1)
@@ -618,65 +312,39 @@ class CoarseMapper:
         Returns (presence (B, 2, s, w) uint32, num_good (B,) int32,
         give_up (B,) bool)."""
         cfg = self.cfg
-        k, q = cfg.query_seed, cfg.index_seed
         s = cfg.mapper_samples
         B = codes.shape[0]
         w = qgram_words.shape[1]
-        qbits = jnp.uint32(4**q - 1)
         both, num_good, give_up = self._sample_hashes_impl(
             kmer_to_row, dist_tab, sample_tab, codes, qual_ok, lengths)
-        nq = k - q + 1
-        if self._scan_mode == "pallas" and w % 1024 == 0:
-            # manual-DMA gather kernel (see _presence_gather_pallas); the
-            # table was tile-padded at upload (qgram_words property) so
-            # each row views as DMA-able (w/128, 128) sub-tiles
-            shifts = 2 * jnp.arange(nq, dtype=jnp.uint32)
-            grams = (both[..., None] >> shifts) & qbits         # (B,2,s,nq)
-            rows = self._gram_rows(kmer_to_row, grams, nq)
-            tab3 = qgram_words.reshape(qgram_words.shape[0], w // 128, 128)
-            pres = _presence_gather_pallas(tab3, rows,
-                                           interpret=self._scan_interpret)
-            return pres.reshape(B, 2, s, w), num_good, give_up
-        pres = []
-        for s_i in range(s):
-            h = both[:, :, s_i]                                      # (B, 2)
-            presence = jnp.full((B, 2, w), 0xFFFFFFFF, dtype=jnp.uint32)
-            for i in range(nq):
-                gram = (h >> jnp.uint32(2 * i)) & qbits
-                presence = presence & qgram_words[kmer_to_row[gram]]
-            pres.append(presence)
-        return jnp.stack(pres, axis=2), num_good, give_up
+        nq = cfg.qgrams_per_kmer
+        shifts = 2 * jnp.arange(nq, dtype=jnp.uint32)
+        grams = (both[..., None] >> shifts) & jnp.uint32(4**cfg.index_seed - 1)
+        rows = self._gram_rows(kmer_to_row, grams, nq)          # (B*2*s, nq)
+        pres = _presence_rows(qgram_words, rows)
+        return pres.reshape(B, 2, s, w), num_good, give_up
 
     # -------------------------------------------------------------------
     CAND_CHUNK = 32  # bucket-chunk width (one u32 word) for extraction
-
-    def _chunk_scan(self, presence, bound):
-        """Counting + per-word chunk reduction (see _chunk_scan_pallas)."""
-        if self._scan_mode == "pallas":
-            return _chunk_scan_pallas(presence, bound,
-                                      interpret=self._scan_interpret)
-        return _chunk_scan_jnp(presence, bound)
 
     def _extract_at_max2(self, planes, chunk_max, max_hits, live, n,
                          col0: int = 0):
         """Bucket ids at the (global) max hit count — word-rank extraction.
 
-        A direct top_k over a (B, 2, n_pad) hit tensor dominates the
-        whole map step (measured 457 ms/batch at 26k buckets vs 76 ms
-        for the scoring itself): XLA's TopK over 52k-wide rows is ~100x
-        off bandwidth; gather-based two-level chunk extraction measured
-        ~57 ms (element gathers + a (C,32)->C*32 relayout). Gather-free
-        instead: dense per-bucket "count == gmax" flag WORDS (XNOR-AND
-        over the packed plane counters), then popcount + word-rank
-        cumsum locate the word holding the c-th set bit with one
-        full-lane crossing-match reduction per target, and a 5-step
+        A direct top_k over a (B, 2, n_pad) hit tensor is a sort over
+        52k-wide rows, and a two-level chunk extraction needs element
+        gathers plus a (C,32)->C*32 relayout. Gather-free instead:
+        dense per-bucket "count == gmax" flag WORDS (XNOR-AND over the
+        packed plane counters), then popcount + word-rank cumsum locate
+        the word holding the c-th set bit with one full-width
+        crossing-match reduction per target, and a 5-step
         halving ladder selects the bit by local rank inside that word.
         Live reads have <= C at-max buckets (more clears the read,
         q_gram_mapper.h:471-476), so C targets extract everything.
         Results identical to a dense extraction: ascending global ids.
 
         planes: (B, 2, n_planes, nc) uint32 packed per-bucket counters
-        (from _chunk_scan / _coarse_score_pallas).
+        (from _chunk_scan).
         Returns cand (B,2,C) int32 — ascending global ids, -1 padded."""
         C = self.cfg.max_candidate_buckets
         B, _, n_planes, nc = planes.shape
@@ -739,31 +407,10 @@ class CoarseMapper:
         """
         cfg = self.cfg
         n = self.n_buckets
-        w = qgram_words.shape[1]
-        if self._scan_mode == "pallas" and w % 1024 == 0:
-            # fully fused scoring: row DMA + AND + counting + word
-            # reduction in one kernel; presence never touches HBM
-            B = codes.shape[0]
-            both, num_good, give_up = self._sample_hashes_impl(
-                kmer_to_row, dist_tab, sample_tab, codes, qual_ok, lengths)
-            nq = cfg.qgrams_per_kmer
-            qbits = jnp.uint32(4**cfg.index_seed - 1)
-            shifts = 2 * jnp.arange(nq, dtype=jnp.uint32)
-            grams = (both[..., None] >> shifts) & qbits         # (B,2,s,nq)
-            rows = self._gram_rows(kmer_to_row, grams, nq)
-            tab3 = qgram_words.reshape(qgram_words.shape[0], w // 128, 128)
-            cm, cc, pls = _coarse_score_pallas(
-                tab3, rows, jnp.int32(n), cfg.mapper_samples,
-                interpret=self._scan_interpret)
-            chunk_max = cm.reshape(B, 2, w)
-            chunk_cnt = cc.reshape(B, 2, w)
-            planes = pls.reshape(B, 2, -1, w)
-        else:
-            presence, num_good, give_up = self._presence_impl(
-                qgram_words, kmer_to_row, dist_tab, sample_tab, codes,
-                qual_ok, lengths)
-            chunk_max, chunk_cnt, planes = self._chunk_scan(
-                presence, jnp.int32(n))
+        presence, num_good, give_up = self._presence_impl(
+            qgram_words, kmer_to_row, dist_tab, sample_tab, codes, qual_ok,
+            lengths)
+        chunk_max, chunk_cnt, planes = _chunk_scan(presence, jnp.int32(n))
         max_hits = chunk_max.max(axis=2)                         # (B,2) i32
         ok = (max_hits >= cfg.min_coarse_hits) & ~give_up[:, None]
         counts = jnp.where((chunk_max == max_hits[:, :, None])

@@ -1,11 +1,11 @@
 """Multi-host runtime: process bootstrap + cross-host read sharding.
 
 The reference has no distributed story (SURVEY §2.5: single process,
-POSIX file IO). This module is the TPU-native equivalent for multi-host
-slices (DCN between hosts, ICI within):
+POSIX file IO). This module is the multi-host equivalent (one process
+per host, each driving its local devices):
 
   * ``initialize()`` — wraps ``jax.distributed.initialize`` with env
-    autodetection (megascale/GKE set the env vars; explicit args
+    autodetection (cluster launchers set the env vars; explicit args
     otherwise). Call once per process before device use.
   * ``global_read_batch()`` — each host parses its own FASTQ shard and
     the batch becomes one global device array via

@@ -1,7 +1,7 @@
 // Native host-side IO for bucketmap_tpu: FASTQ parsing and SAM record
 // formatting. The device pipeline consumes fixed-shape uint8 matrices;
 // these routines produce/consume them at memory bandwidth so the host
-// input/output path keeps up with the TPU stages (the reference's IO is
+// input/output path keeps up with the device stages (the reference's IO is
 // C++ SeqAn3; ours is this translation-unit + ctypes).
 //
 // Build: make -C csrc   ->  csrc/build/libbmtpu_io.so

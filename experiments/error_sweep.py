@@ -2,10 +2,10 @@
 substitutions 0.2-1%, indels 0.025-0.1%, read lengths 100/150/300).
 
 Usage:
-  python experiments/error_sweep.py [--genome-mbp 8] [--reads 2000] [--tpu]
+  python experiments/error_sweep.py [--genome-mbp 8] [--reads 2000] [--gpu]
 
 Outputs one JSON line per configuration with %mapped, %correct-position
-and reads/s (CPU numbers unless --tpu).
+and reads/s (CPU numbers unless --gpu).
 """
 
 from __future__ import annotations
@@ -30,10 +30,10 @@ def main() -> None:
     ap.add_argument("--read-lens", default="100,150,300")
     ap.add_argument("--sub-rates", default="0.002,0.01")
     ap.add_argument("--indel-rates", default="0.00025,0.001")
-    ap.add_argument("--tpu", action="store_true")
+    ap.add_argument("--gpu", action="store_true")
     args = ap.parse_args()
 
-    if not args.tpu:
+    if not args.gpu:
         import jax
 
         jax.config.update("jax_platforms", "cpu")

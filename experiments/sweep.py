@@ -27,13 +27,12 @@ def main() -> None:
     ap.add_argument("--d-values", default="0,0.3,0.5,0.7,0.9")
     ap.add_argument("--b-values", default="0,25")
     ap.add_argument("--sub-rate", type=float, default=0.002)
-    ap.add_argument("--tpu", action="store_true",
-                    help="run on the TPU backend (default: CPU — each (d,b) "
-                         "point compiles a fresh program, which is slow over "
-                         "a remote TPU)")
+    ap.add_argument("--gpu", action="store_true",
+                    help="run on the GPU (default: CPU — each (d,b) point "
+                         "compiles a fresh program)")
     args = ap.parse_args()
 
-    if not args.tpu:
+    if not args.gpu:
         import jax
 
         jax.config.update("jax_platforms", "cpu")

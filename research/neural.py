@@ -1,7 +1,7 @@
 """Neural / RL research-tree components (reference P5 + P7, SURVEY §2.4).
 
 Reimplements the capabilities of the reference's exploratory learning
-stack, TPU-first (flax/optax instead of torch/stable-baselines3):
+stack on JAX (flax/optax instead of torch/stable-baselines3):
 
   * canonical k-mer profiles (`seed_selection/utils.py:86-117`,
     `dataset.py:23-33`): map every k-mer to min(hash, revcomp-hash) and

@@ -24,8 +24,10 @@ def workdir(tmp_path_factory):
     return d
 
 
-def test_cli_index_map_analyze(workdir, capsys):
+def test_cli_index_map_analyze(workdir, capsys, monkeypatch):
     d = workdir
+    # the CLI's compile-cache helper then leaves JAX's config untouched
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(d / "jax_cache"))
     assert (d / "t.qgram").exists() and (d / "t.bmtpu.qgram_words.npy").exists()
     assert cli_main(["map", "-i", "t", "-q", str(d / "rd.fastq"),
                      "-o", str(d / "out.sam"), "--index-dir", str(d),
@@ -46,8 +48,9 @@ def test_cli_index_map_analyze(workdir, capsys):
     assert res.precision_pct >= 90
 
 
-def test_cli_align_mode_and_reference_index_load(workdir):
+def test_cli_align_mode_and_reference_index_load(workdir, monkeypatch):
     d = workdir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(d / "jax_cache"))
     # load via the reference-format files (exercise import path + align)
     import os
     os.rename(d / "t.bmtpu.json", d / "t_hidden.json")

@@ -55,25 +55,36 @@ def test_validation_mode_and_checked():
     err, _ = checked(jax.jit(f))(jnp.int32(17))
     assert err.get() is not None and "out-of-bounds" in err.get()
 
-def test_resource_report():
+def test_resource_report(monkeypatch):
     """resource_report mirrors /usr/bin/time -v's peak-RSS discipline
-    (benchmark/README.md:89-130): host RSS always present, HBM fields
-    None when the backend doesn't expose memory_stats."""
-    from bucketmap_tpu.utils.debug import resource_report
+    (benchmark/README.md:89-130): host RSS always present; the device
+    peak comes from memory_stats() — None on the CPU, and an error on
+    an accelerator that reports none (never an estimate)."""
+    import pytest
 
-    r = resource_report()
+    from bucketmap_tpu.utils import debug
+
+    r = debug.resource_report()
     assert r["peak_host_rss_kb"] > 1000  # a python process is >1 MB
     assert set(r) == {"peak_host_rss_kb", "device_hbm_peak_bytes",
-                      "device_hbm_peak_source", "device_hbm_limit_bytes"}
-    hbm = r["device_hbm_peak_bytes"]
-    assert hbm is None or hbm > 0
-    assert r["device_hbm_peak_source"] in (None, "memory_stats",
-                                           "live_arrays")
-    # the live-array watermark fallback engages after a sample
-    from bucketmap_tpu.utils.debug import hbm_sample
-    import jax.numpy as jnp
-    x = jnp.ones((128, 128))
-    now = hbm_sample()
-    assert now >= x.nbytes
-    r2 = resource_report()
-    assert r2["device_hbm_peak_bytes"] is not None
+                      "device_hbm_limit_bytes"}
+    assert r["device_hbm_peak_bytes"] is None
+    assert r["device_hbm_limit_bytes"] is None
+
+    class _Dev:
+        platform, device_kind = "gpu", "NVIDIA H100 80GB HBM3"
+
+        def __init__(self, stats):
+            self.stats = stats
+
+        def memory_stats(self):
+            return self.stats
+
+    stats = {"peak_bytes_in_use": 5 << 30, "bytes_limit": 60 << 30}
+    monkeypatch.setattr(jax, "local_devices", lambda: [_Dev(stats)])
+    r = debug.resource_report()
+    assert r["device_hbm_peak_bytes"] == 5 << 30
+    assert r["device_hbm_limit_bytes"] == 60 << 30
+    monkeypatch.setattr(jax, "local_devices", lambda: [_Dev(None)])
+    with pytest.raises(RuntimeError, match="memory_stats"):
+        debug.resource_report()

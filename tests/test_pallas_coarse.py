@@ -1,12 +1,12 @@
-"""The Pallas chunk-scan kernel (bit-sliced counting + per-word max /
-at-max count) must equal the jnp reference on the same presence words,
-including the sentinel masking beyond `bound` and tile padding."""
+"""The coarse chunk scan (bit-sliced counting + per-word max / at-max
+count, ops/coarse.py:_chunk_scan) must equal a numpy oracle on the same
+presence words, including the sentinel masking beyond `bound`."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-from bucketmap_tpu.ops.coarse import _chunk_scan_jnp, _chunk_scan_pallas
+from bucketmap_tpu.ops.coarse import _chunk_scan
 
 
 def _reference_counts(presence, bound):
@@ -39,29 +39,25 @@ def _check(B, s, w, bound, seed, dense=False):
                 np.take_along_axis(presence, word[..., None], axis=3)
                 | np.where(keep[..., i, None], np.uint32(1) << bit[..., None],
                            0).astype(np.uint32), axis=3)
-    jp = jnp.asarray(presence)
-    cm1, cc1, pl1 = jax.device_get(_chunk_scan_jnp(jp, jnp.int32(bound)))
-    cm2, cc2, pl2 = jax.device_get(
-        _chunk_scan_pallas(jp, jnp.int32(bound), block_rows=16,
-                           interpret=True))
-    np.testing.assert_array_equal(cm1, cm2)
-    np.testing.assert_array_equal(cc1, cc2)
-    np.testing.assert_array_equal(pl1, pl2)
+    cm, cc, planes = jax.device_get(
+        _chunk_scan(jnp.asarray(presence), jnp.int32(bound)))
+    assert cm.shape == cc.shape == (B, 2, w)
+    assert planes.shape == (B, 2, s.bit_length(), w)
     # planes are the packed per-bucket counters
     hits = _reference_counts(presence, w * 32)  # unmasked counts
     unpacked = np.zeros_like(hits)
-    for j in range(pl1.shape[2]):
+    for j in range(planes.shape[2]):
         for word in range(w):
             for b in range(32):
                 unpacked[..., word * 32 + b] |= (
-                    ((pl1[:, :, j, word] >> b) & 1) << j).astype(np.int32)
+                    ((planes[:, :, j, word] >> b) & 1) << j).astype(np.int32)
     np.testing.assert_array_equal(unpacked, hits)
-    # both vs the numpy oracle on the unpadded range
-    hits = _reference_counts(presence, bound)
-    hc = hits.reshape(B, 2, w, 32)
-    np.testing.assert_array_equal(cm1[:, :, :w], hc.max(axis=3))
-    np.testing.assert_array_equal(
-        cc1[:, :, :w], (hc == hc.max(axis=3)[..., None]).sum(axis=3))
+    # chunk max / at-max count vs the oracle; fully masked words read
+    # max -1, count 32
+    hc = _reference_counts(presence, bound).reshape(B, 2, w, 32)
+    np.testing.assert_array_equal(cm, hc.max(axis=3))
+    cnt = (hc == hc.max(axis=3)[..., None]).sum(axis=3)
+    np.testing.assert_array_equal(cc, cnt)
 
 
 def test_chunk_scan_sparse():

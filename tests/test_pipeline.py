@@ -320,9 +320,9 @@ def test_align_stream_emit_writer_failure_propagates():
 
 def test_fetch_group_concat_fetch_matches_single(world, tmp_path):
     """fetch_group > 1 fetches K concatenated step outputs with one
-    device_get (pipeline.py:locate_chunks). Dead-default on the
-    bandwidth-poor link but shipped — its SAM must be byte-identical to
-    the fetch_group=1 path, including across the final partial group."""
+    device_get (pipeline.py:locate_chunks). Off by default but shipped
+    — its SAM must be byte-identical to the fetch_group=1 path,
+    including across the final partial group."""
     genome, index = world
     sim = ShortReadSimulator(CFG, substitution_rate=0.01, seed=77)
     sim.read(genome)

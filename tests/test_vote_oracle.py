@@ -179,3 +179,59 @@ def test_oracle_equality_mixed_repeat():
     starts = [450, 480, 500, 920, 1400, 1960]
     rcs = [False, False, True, True, False, True]
     _run_case(genome, starts, rcs)
+
+
+def tally_oracle(prop, valid, is_rc, indel, min_vote):
+    """The sequential tally of _find_offset (bucket_locator.h:227-290) on
+    proposed segment starts: prop/valid (p, O) per pair, samples visited
+    in reverse for revcomp pairs; exact-position merge while the counter
+    is empty, +-indel merge into every close proposal afterwards."""
+    counter: dict[int, int] = {}
+    order = range(prop.shape[0] - 1, -1, -1) if is_rc else range(prop.shape[0])
+    for j in order:
+        tol = indel if counter else 0
+        for o in range(prop.shape[1]):
+            if not valid[j, o]:
+                continue
+            x = int(prop[j, o])
+            close = [c for c in counter if abs(c - x) <= tol]
+            for c in close:
+                counter[c] += 1
+            if not close:
+                counter[x] = 1
+    if not counter:
+        return 0, 0, False
+    best = min(counter, key=lambda c: (-counter[c], c))
+    return best, counter[best], counter[best] >= min_vote and best >= 1
+
+
+@pytest.mark.parametrize("tandem", [False, True])
+def test_tally_matches_sequential_oracle(tandem):
+    """FineLocator._tally on random proposals (70 pairs, odd-sized) ==
+    the sequential oracle, offset/votes/accept on every pair. Tandem
+    cases pile near-identical proposals so votes exceed num_samples and
+    creation order matters."""
+    import jax
+    import jax.numpy as jnp
+
+    cfg = MapperConfig(bucket_len=1024, read_len=300)
+    fl = FineLocator(build_index(random_genome(8 * 1024, seed=3), cfg))
+    rng = np.random.RandomState(11 + tandem)
+    P, p, O = 70, cfg.locator_samples, FineLocator.MAX_OCC
+    prop = rng.randint(-300, 2000, (P, p, O)).astype(np.int32)
+    valid = rng.random_sample((P, p, O)) < 0.35
+    valid[:, :, 0] |= rng.random_sample((P, p)) < 0.9
+    if tandem:
+        base = rng.randint(0, 1500, (P, 1, 1))
+        near = rng.random_sample((P, p, O)) < 0.85
+        prop = np.where(near, base + rng.randint(-6, 7, (P, p, O)),
+                        prop).astype(np.int32)
+    is_rc = rng.random_sample(P) < 0.5
+    off, votes, acc = jax.device_get(fl._tally(
+        jnp.asarray(prop), jnp.asarray(valid), jnp.asarray(is_rc)))
+    for i in range(P):
+        want = tally_oracle(prop[i], valid[i], is_rc[i], cfg.allowed_indel,
+                            cfg.min_vote)
+        assert (int(off[i]), int(votes[i]), bool(acc[i])) == want, i
+    if tandem:
+        assert acc.any()
